@@ -8,7 +8,7 @@
 // Jones / partial-hard-limit / degree-1 clipping combinations, under the
 // flooding and horizontal-layered schedules, selected by the same 36
 // implementation names. Intended for GNU Radio-style consumers that link
-// against the C ABI (capi/ldpc_toolbox.h) without a Python or TPU runtime.
+// against the C ABI (capi/ldpc_toolbox.h) without a Python or JAX runtime.
 
 #include "ldpc_toolbox.h"
 
@@ -619,7 +619,7 @@ std::unique_ptr<IDecoder> make_decoder(const std::string &name, SparseMatrix h) 
   MK("HLMinstarapproxf32", MinstarApproxArith<D32>, true)
   MK("HLAminstarf64", AminstarArith<D64>, true)
   MK("HLAminstarf32", AminstarArith<D32>, true)
-  // framework extensions (factory.py:74-75; bf16 storage is a TPU-side
+  // framework extensions (factory.py:74-75; bf16 storage is a device-side
   // concern — scalar CPU computes in f32 either way)
   MK("Minsumf64", MinsumArith<D64>, false)
   MK("Minsumf32", MinsumArith<D32>, false)

@@ -52,44 +52,40 @@ class Decoder:
         decode), a standards code object (``codes.dvbs2.Code``,
         ``AR4JACode``, ``C2Code``), or a ``(BaseGraph, Z)`` pair for
         5G-NR.  Code objects route to the block-circulant lifted decode
-        — the fused Pallas fast path on TPU (ops/fused_bp2.py)."""
+        (decoder/lifted_flooding.py, decoder/lifted_layered.py)."""
         self.lifted = None
         if not isinstance(h, (SparseMatrix, DecodeGraph)):
             from .lifted import LiftedGraph, lifted_graph_for, nr5g_maps
 
             if isinstance(h, tuple):  # (BaseGraph, lifting size Z)
                 bg, z = h
-                hm = bg.h(z)
-                self.lifted = LiftedGraph.from_sparse(hm, *nr5g_maps(bg, z))
-                h = hm
+                self.lifted = LiftedGraph.from_sparse(
+                    bg.h(z), *nr5g_maps(bg, z)
+                )
             else:
                 self.lifted = lifted_graph_for(h)
                 if self.lifted is None:
                     raise TypeError(
                         f"unsupported code object {type(h).__name__}"
                     )
-                h = h.h()
-        if isinstance(h, DecodeGraph):
-            self.graph = h
-        else:
-            self.graph = DecodeGraph.from_sparse(h)
         self.implementation = implementation
         self.schedule, self.arithmetic = make_arithmetic(implementation)
         if self.lifted is not None:
             from .lifted_flooding import lifted_flooding_decode
             from .lifted_layered import lifted_layered_decode
 
-            fused = jax.default_backend() != "cpu"
-            base = (
+            # the lifted decode takes the LiftedGraph where the generic
+            # one takes its DecodeGraph
+            self.graph = self.lifted
+            self._decode_fn = (
                 lifted_flooding_decode
                 if self.schedule == "flooding"
                 else lifted_layered_decode
             )
-            self._decode_fn = lambda _g, a, llrs, max_iterations: base(
-                self.lifted, a, llrs, max_iterations=max_iterations,
-                fused=fused,
-            )
         else:
+            self.graph = (
+                h if isinstance(h, DecodeGraph) else DecodeGraph.from_sparse(h)
+            )
             self._decode_fn = (
                 flooding_decode
                 if self.schedule == "flooding"

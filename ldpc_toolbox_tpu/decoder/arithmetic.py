@@ -34,9 +34,9 @@ Everything here is shape-polymorphic over the leading axes, so the same
 functions serve the flooding schedule (all m checks at once) and the
 horizontal-layered schedule (one variable-disjoint layer at a time).
 
-Note on f64: TPUs have no native double precision. The ``*f64`` rules use
-float64 when JAX x64 mode is enabled (CPU), else float32 — the factory
-handles the mapping and keeps the reference's names.
+Note on f64: the ``*f64`` rules use float64 when JAX x64 mode
+(``jax_enable_x64``) is on, else float32 — the factory handles the
+mapping and keeps the reference's names.
 """
 
 from __future__ import annotations
@@ -168,10 +168,10 @@ class PhiArithmetic(Arithmetic):
     def _phi(self, x):
         # phi(x) = -ln(tanh(x/2)) = ln(1+e^-x) - ln(1-e^-x), computed via
         # log1p/expm1. The textbook tanh form collapses to 0 once tanh
-        # rounds to 1 (TPU f32: x >= 16; exact f32: x >= 17), zeroing the
-        # magnitude of every strong message and raising the error floor
-        # ~25x; the stable form keeps phi = 2e^-x down to the f32
-        # underflow at x ~ 103.
+        # rounds to 1 (XLA's f32 on the H100: x >= 16; exact f32: x >= 17),
+        # zeroing the magnitude of every strong message and raising the
+        # error floor ~25x; the stable form keeps phi = 2e^-x down to the
+        # f32 underflow at x ~ 103.
         x = jnp.maximum(x, jnp.asarray(self.MIN_X, self.dtype))
         t = jnp.exp(-x)
         # ln(1-t): log1p(-t) is exact for small t (log(-expm1(-x)) would
@@ -205,10 +205,11 @@ class TanhArithmetic(Arithmetic):
         self.clamp = clamp
         # The reference's input clamp keeps tanh(clamp) < 1 only under
         # exact round-to-nearest libm (tanh(9) = 1 - 3.0e-8 rounds to
-        # 0.99999994f). TPU transcendentals are polynomial approximations:
-        # measured on v5e, f32 tanh(x) == 1.0 exactly for x >= 8, so
-        # atanh(prod) would be inf and the NaN posteriors hard-decide to
-        # the all-zero word — every frame a false decode. Clamp the
+        # 0.99999994f). XLA's tanh is a polynomial approximation, not
+        # libm's: measured on the H100 (and on XLA's CPU backend), f32
+        # tanh(x) == 1.0 exactly for x >= 8, so atanh(prod) would be inf
+        # and the NaN posteriors hard-decide to the all-zero word — every
+        # frame a false decode. Clamp the
         # product to the largest representable value below one, bounding
         # messages at 2*atanh(1-2^-24) = 17.3 (f32) / 37.4 (f64); a no-op
         # wherever the reference arithmetic is finite.
@@ -281,7 +282,7 @@ class MinstarApproxArithmetic(Arithmetic):
 class MinSumArithmetic(Arithmetic):
     """Plain normalized min-sum (framework extension, not in the reference's
     18 rules): leave-one-out minimum magnitude via the two-minima trick —
-    the throughput-optimal rule for the TPU fast path.
+    the cheapest rule per edge.
     """
 
     def __init__(self, dtype=jnp.float32, scale=1.0, storage=None):
@@ -421,9 +422,8 @@ class _I8Base(Arithmetic):
         # The table is monotone non-increasing with a handful of distinct
         # values (0..6), so table[t] == sum_v 1[t < thr_v] where thr_v is
         # the number of entries >= v. The sum-of-comparisons form avoids a
-        # (rows, degree, batch)-shaped gather per fold step — XLA lowers
-        # small-table gathers on TPU orders of magnitude slower than the
-        # six vectorized compares (measured ~300x on the generic i8 path).
+        # (rows, degree, batch)-shaped gather per fold step: six
+        # elementwise compares fuse with the fold, a gather does not.
         assert np.all(np.diff(table) <= 0), "correction table not monotone"
         self._thresholds = tuple(
             int(np.sum(table >= v)) for v in range(1, int(table.max()) + 1)

@@ -6,11 +6,11 @@ All 36 strings of the reference's ``DecoderImplementation`` enum
 Minstarapprox / Aminstar families in f64, f32 and 8-bit quantized forms.
 
 Framework extensions (not in the reference): ``Minsumf32`` /
-``HLMinsumf32`` — plain normalized min-sum, the TPU throughput fast path.
+``HLMinsumf32`` — plain normalized min-sum, the cheapest rule per edge.
 
-``*f64`` names use float64 only when JAX x64 mode is on (CPU); on TPU they
-map to float32, since TPUs have no native double precision. The names are
-kept for CLI/API parity.
+``*f64`` names use float64 only when JAX x64 mode (``jax_enable_x64``) is
+on; with it off, the default, they compute in float32 on every backend.
+The names are kept for CLI/API parity.
 """
 
 from __future__ import annotations
@@ -125,15 +125,15 @@ def make_arithmetic(name: str) -> tuple[str, Arithmetic]:
     """Returns (schedule, arithmetic instance) for an implementation name."""
     schedule, factory = parse_implementation(name)
     if "f64" in name and not jax_config.jax_enable_x64 and name not in _warned_f64:
-        # TPUs have no native double precision; be explicit that the f64
-        # name runs in f32 (BER parity vs the f64 reference is validated
-        # statistically in tests/test_ber_parity.py)
+        # with x64 off JAX has no float64 arrays; be explicit that the
+        # f64 name runs in f32 (BER parity vs the f64 reference is
+        # validated statistically in tests/test_ber_parity.py)
         import warnings
 
         _warned_f64.add(name)
         warnings.warn(
-            f"decoder {name!r}: float64 is unavailable on this backend "
-            "(jax_enable_x64 is off); computing in float32",
+            f"decoder {name!r}: float64 needs jax_enable_x64, which is "
+            "off; computing in float32",
             stacklevel=2,
         )
     return schedule, factory()

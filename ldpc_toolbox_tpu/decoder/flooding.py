@@ -1,6 +1,6 @@
 """Flooding-schedule belief propagation, batched over codewords.
 
-TPU-native rebuild of the reference's ``decoder/flooding.rs``: one
+Batched rebuild of the reference's ``decoder/flooding.rs``: one
 iteration = all check nodes then all variable nodes, with per-frame early
 exit. A whole batch decodes in one ``lax.while_loop``; converged frames
 freeze their output and iteration count the first time their hard decision

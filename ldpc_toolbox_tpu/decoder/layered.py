@@ -6,7 +6,7 @@ variable posteriors Qv and per-edge check messages Rcv; each check node
 subtracts its old message, recomputes, and updates Qv in place
 (horizontal_layered.rs:105-110).
 
-On TPU the serial sweep becomes a ``lax.scan`` over *layers* — groups of
+Here the serial sweep becomes a ``lax.scan`` over *layers* — groups of
 variable-disjoint checks extracted by order-preserving layering
 (decoder/layout.extract_layers): every conflicting row pair executes in
 increasing row index, so the schedule is serial-equivalent to the
@@ -14,8 +14,8 @@ reference's 0..m sweep — bit-identical messages, iteration counts and
 codewords for the integer arithmetics (cross-validated against the scalar
 C++ shim in tests/test_capi.py).
 
-The whole sweep is scatter-free (XLA scatters on TPU compile glacially and
-lower poorly): Rcv is stored layer-major ``(L, R, dc, B)`` and *flows
+The whole sweep is scatter-free, so its result never depends on the
+order in which a scatter applies its updates: Rcv is stored layer-major ``(L, R, dc, B)`` and *flows
 through* the scan (xs -> ys), and the Qv update is a **gather** — each
 layer's masked deltas flatten to ``(R*dc + 1, B)`` and a host-precomputed
 ``(L, n+1)`` source table maps every variable to its updating slot (or the

@@ -1,7 +1,7 @@
 """Padded dual-gather decode layout.
 
 The reference decoder is edge-serial and pointer-chasing (per-node adjacency
-vectors, decoder.rs:84-155). The TPU-native inversion: the Tanner graph
+vectors, decoder.rs:84-155). The batched inversion: the Tanner graph
 compiles to four *static* padded index tensors, and one BP iteration is two
 dense gathers over HBM-resident message arrays — no scatters:
 
@@ -16,8 +16,7 @@ dense gathers over HBM-resident message arrays — no scatters:
 * the variable-node update symmetrically gathers ``c2v[var_edges]``.
 
 Batch is the trailing (lane) dimension, so every gather moves contiguous
-``(batch,)`` rows — the layout XLA:TPU handles well and the eventual Pallas
-kernels stream linearly.
+``(batch,)`` rows, which an XLA gather reads as whole contiguous rows.
 
 The horizontal-layered schedule additionally needs groups of
 variable-disjoint checks ("layers"); :func:`extract_layers` greedily colors

@@ -9,11 +9,8 @@ circulants: base edge (vg, cg, s) connects variable lane ``w`` of group
 
 The decode consequence: messages live as whole planes ``(Z, batch)`` per
 base edge, and moving a message between variable and check coordinates is
-a *roll* of a contiguous plane — not a row-granular random gather. The
-plane gather + roll runs at DMA bandwidth (a Pallas kernel in
-ops/plane_gather.py; a jnp fallback keeps CPU/test paths working), versus
-the ~3.5x-lower ceiling of XLA's general gather that the unstructured
-layout is subject to.
+a *roll* of a contiguous plane — not a row-granular random gather
+(ops/plane_gather.py moves whole contiguous ``(batch,)`` rows).
 
 ``LiftedGraph.from_sparse`` detects the circulant structure from any
 parity-check matrix given the (node -> (group, lane)) mappings, verifying

@@ -7,21 +7,17 @@ parallel checks (one circulant row block): within a layer every check
 touches a distinct lane of each incident variable group, so the parallel
 update matches the serial one except when a layer contains two base edges
 into the same variable group (possible in DVB-S2); those deltas sum
-against the layer-entry Qv, which changes the bit pattern but not the
-convergence class (the same caveat as the generic greedy-colored
-schedule, ARCHITECTURE.md "Known divergences").
+against the layer-entry Qv (added to each other first, in slot order, so
+the result does not depend on the order a scatter applies them), which
+changes the bit pattern but not the convergence class (the same caveat
+as the generic greedy-colored schedule, ARCHITECTURE.md "Known
+divergences").
 
-Layer order is check-bucket-major (the fused layout's flat group order),
-not the reference's 0..m row sweep — the reference's row r = a + b*q
-ordering interleaves groups and cannot be parallelized as written.
-
-Two paths with identical semantics, compared bit-exactly in tests:
-
-* plain-jnp reference (any arithmetic): `lax.scan` per bucket over its
-  layers, plane gathers + rolls,
-* fused Pallas (min-sum + i8 families): one kernel per iteration keeps
-  the whole Qv tile VMEM-resident and streams Rcv slabs
-  (ops/fused_layered.py).
+Layer order is check-bucket-major (the layout's flat group order,
+decoder/lifted_layout.py), not the reference's 0..m row sweep — the
+reference's row r = a + b*q ordering interleaves groups and cannot be
+parallelized as written. Each bucket's layers run as one `lax.scan`:
+plane gathers, lane rolls, the check rule, and the Qv update.
 """
 
 from __future__ import annotations
@@ -30,45 +26,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.fused_bp2 import BT, build_fused_layout, fused_syndrome_bits
 from .lifted import LiftedGraph
+from .lifted_layout import build_lifted_layout
 
 __all__ = ["lifted_layered_decode"]
-
-
-def lifted_layered_decode(
-    lg: LiftedGraph,
-    arithmetic,
-    llrs,
-    max_iterations: int,
-    fused: bool = False,
-    compact: bool = True,
-    resident: bool | None = None,
-):
-    """Decode a (B, n) batch of channel LLRs, layered schedule, lifted
-    layout. Same output contract as lifted_flooding_decode.
-
-    Fused-path variants (both bit-identical to the jnp reference):
-
-    * ``resident`` (default auto): the whole decode runs inside one
-      kernel with the tile state VMEM-resident — zero HBM traffic per
-      iteration, per-tile early exit (ops/resident_layered.py). Auto
-      selects it whenever the code's state fits the VMEM budget.
-    * otherwise the per-iteration streaming kernel
-      (ops/fused_layered.py) under a while_loop; ``compact`` enables
-      staged converged-frame compaction (decoder/compaction.py).
-    """
-    if fused:
-        from ..ops.fused_bp2 import rule_for
-        from ..ops.fused_layered import fused_layered_supported
-
-        rule = rule_for(arithmetic)
-        if rule is not None and fused_layered_supported(lg, rule):
-            return _fused_layered_decode(
-                lg, arithmetic, rule, llrs, max_iterations, compact,
-                resident,
-            )
-    return _jnp_layered_decode(lg, arithmetic, llrs, max_iterations)
 
 
 def _planes_of(lg, llrs, dtype):
@@ -96,10 +57,42 @@ def _codeword_from_planes(lg, col_of, hard_planes):
     )
 
 
-def _jnp_layered_decode(lg, arithmetic, llrs, max_iterations):
+def _duplicate_merge(layout, m):
+    """Static tables that merge a layer's edges into one variable group.
+
+    Returns None when no layer of bucket ``m`` meets a variable group
+    twice; else ``(partners, first)``: ``partners[j, k, t]`` is the slot of
+    layer ``j`` whose delta slot ``t`` adds k-th (``m.d``, a zero pad, when
+    there is none) and ``first[j, t]`` is whether slot ``t`` is the first
+    of its group in the layer.
+    """
+    layers = m.g1 - m.g0
+    vgs = layout.syn_vg[m.ebase : m.ebase + layers * m.d].reshape(layers, m.d)
+    later = [
+        [[s for s in range(t + 1, m.d) if row[s] == row[t]] for t in range(m.d)]
+        for row in vgs
+    ]
+    first = np.array(
+        [[row[t] not in row[:t] for t in range(m.d)] for row in vgs.tolist()]
+    )
+    if first.all():
+        return None
+    K = max(len(p) for lay in later for p in lay)
+    partners = np.full((layers, K, m.d), m.d, np.int32)
+    for j, lay in enumerate(later):
+        for t, p in enumerate(lay):
+            if first[j, t]:
+                partners[j, : len(p), t] = p
+    return jnp.asarray(partners), jnp.asarray(first)
+
+
+def lifted_layered_decode(lg: LiftedGraph, arithmetic, llrs,
+                          max_iterations: int):
+    """Decode a (B, n) batch of channel LLRs, layered schedule, lifted
+    layout. Same output contract as lifted_flooding_decode."""
     Z = lg.Z
     B = llrs.shape[0]
-    layout = build_fused_layout(lg)
+    layout = build_lifted_layout(lg)
     E, VG = layout.E, layout.VG
     compute = arithmetic.compute_dtype
     store = arithmetic.storage_dtype
@@ -143,8 +136,9 @@ def _jnp_layered_decode(lg, arithmetic, llrs, max_iterations):
     def sweep(qv, rcv):
         for m in layout.chk_meta:
             d = m.d
+            merge = _duplicate_merge(layout, m)
 
-            def step(carry, j, m=m, d=d):
+            def step(carry, j, m=m, d=d, merge=merge):
                 qv, rcv = carry
                 e0 = m.ebase + j * d
                 vgs = jax.lax.dynamic_slice(vg_arr, (e0,), (d,))
@@ -167,6 +161,20 @@ def _jnp_layered_decode(lg, arithmetic, llrs, max_iterations):
                 delta_v = jnp.take_along_axis(
                     delta, idx_cv[..., None], axis=1
                 )
+                if merge is not None:
+                    # a variable group met twice in this layer: its later
+                    # slots' deltas join the first slot's, in slot order,
+                    # and leave zeros behind, so the scatter-add below
+                    # adds one nonzero plane per group — the same result
+                    # in whatever order it applies its updates
+                    # (atomically on the GPU)
+                    partners, first = merge[0][j], merge[1][j]
+                    padded = jnp.concatenate(
+                        [delta_v, jnp.zeros_like(delta_v[:1])]
+                    )
+                    for k in range(partners.shape[0]):
+                        delta_v = delta_v + padded[partners[k]]
+                    delta_v = jnp.where(first[:, None, None], delta_v, 0)
                 qv = qv.at[vgs].add(delta_v.astype(qv.dtype))
                 rcv = jax.lax.dynamic_update_slice(
                     rcv, rnew.astype(store), (e0, 0, 0)
@@ -211,163 +219,4 @@ def _jnp_layered_decode(lg, arithmetic, llrs, max_iterations):
         "codeword": _codeword_from_planes(lg, col_of, hard_planes),
         "iterations": iters,
         "success": converged,
-    }
-
-
-def _fused_layered_decode(lg, arithmetic, rule, llrs, max_iterations,
-                          compact=True, resident=None):
-    import os
-
-    from ..ops.fused_layered import fused_layered_iteration
-    from ..ops.resident_compressed import (
-        compressed_layered_decode,
-        compressed_layered_pick_bt,
-    )
-    from ..ops.resident_layered import (
-        resident_layered_decode,
-        resident_pick_bt,
-    )
-
-    Z = lg.Z
-    B_user = llrs.shape[0]
-    layout = build_fused_layout(lg)
-    store = rule.storage_dtype
-    qv_store = rule.qv_dtype(arithmetic)
-
-    # resident path: widest batch tile whose state fits VMEM (small codes
-    # take 256-512-wide tiles); streaming path: the standard BT
-    bt = resident_pick_bt(layout, rule, qv_store, B_user)
-    compressed = False
-    if bt == 0 or os.environ.get("LDPC_FORCE_COMPRESSED"):
-        # Rcv exceeds VMEM (the f32 min-sum families at DVB-S2 size):
-        # fall back to the compressed check-state kernel before streaming
-        btc = compressed_layered_pick_bt(layout, rule, qv_store, B_user)
-        if btc:
-            bt = btc
-            compressed = True
-    if resident is None:
-        resident = bt > 0
-    tile_w = bt if (resident and bt) else BT
-    if B_user % tile_w:
-        pad = tile_w - B_user % tile_w
-        llrs = jnp.concatenate(
-            [llrs, jnp.full((pad, llrs.shape[1]), 100.0, llrs.dtype)]
-        )
-    B = llrs.shape[0]
-    nbt = B // tile_w
-
-    llr_planes, col_of = _planes_of(lg, llrs, jnp.float32)
-    q = arithmetic.quantize(llr_planes)
-    qv0 = arithmetic.llr_to_var_llr(q).astype(qv_store)
-
-    lane_pad = layout.Zp - Z  # mod-Z roll padding (e.g. C2's Z=511->512)
-
-    def tile(x):  # (P, Z, B) -> (nbt, P, Zp, Bt)
-        P = x.shape[0]
-        x = x.reshape(P, Z, nbt, tile_w).transpose(2, 0, 1, 3)
-        if lane_pad:
-            x = jnp.pad(x, ((0, 0), (0, 0), (0, lane_pad), (0, 0)))
-        return x
-
-    def untile(x):  # (nbt, P, Zp, Bt) -> (P, Z, B)
-        P = x.shape[1]
-        if lane_pad:
-            x = x[:, :, :Z, :]
-        return x.transpose(1, 2, 0, 3).reshape(P, Z, B)
-
-    qv0_t = tile(qv0)
-    bits0 = tile((llr_planes <= 0).astype(jnp.int8))
-
-    if resident:
-        decode = (
-            compressed_layered_decode
-            if compressed
-            else resident_layered_decode
-        )
-        bits, iters_t, conv_t = decode(
-            qv0_t, bits0, layout, rule, max_iterations
-        )
-        iters = iters_t[:, 0, :].reshape(-1)
-        converged = conv_t[:, 0, :].reshape(-1) != 0
-        return {
-            "codeword": _codeword_from_planes(lg, col_of, untile(bits))[
-                :B_user
-            ],
-            "iterations": iters[:B_user],
-            "success": converged[:B_user],
-        }
-
-    rcv0_t = jnp.zeros((nbt, layout.E, layout.Zp, BT), store)
-
-    def flags_to_ok(flags):
-        return flags[:, 0, :].reshape(-1) == 0
-
-    ok0 = flags_to_ok(fused_syndrome_bits(bits0, layout))
-
-    if compact:
-        from .compaction import staged_while_decode
-
-        def iteration(big, const):
-            del const
-            qv, rcv = big
-            qv, rcv, bits = fused_layered_iteration(qv, rcv, layout, rule)
-            return (qv, rcv), bits
-
-        hard, iters, converged = staged_while_decode(
-            nbt=nbt,
-            bt=BT,
-            max_iterations=max_iterations,
-            init_big=(qv0_t, rcv0_t),
-            const_big=(),
-            bits0=bits0,
-            ok0=ok0,
-            iteration=iteration,
-            syndrome_ok=lambda bits: flags_to_ok(
-                fused_syndrome_bits(bits, layout)
-            ),
-        )
-        if lane_pad:
-            hard = hard[:, :Z, :]
-        return {
-            "codeword": _codeword_from_planes(lg, col_of, hard)[:B_user],
-            "iterations": iters[:B_user],
-            "success": converged[:B_user],
-        }
-
-    def body(state):
-        it, qv_t, rcv_t, _bits, converged, iters, frozen = state
-        qv_t, rcv_t, bits = fused_layered_iteration(
-            qv_t, rcv_t, layout, rule
-        )
-        ok = flags_to_ok(fused_syndrome_bits(bits, layout))
-        newly = ok & ~converged
-        it = it + 1
-        iters = jnp.where(newly, it, iters)
-        nt = newly.reshape(nbt, 1, 1, BT)
-        frozen = jnp.where(nt, bits, frozen)
-        return (it, qv_t, rcv_t, bits, converged | ok, iters, frozen)
-
-    def cond(state):
-        return (state[0] < max_iterations) & ~jnp.all(state[4])
-
-    init = (
-        jnp.int32(0),
-        qv0_t,
-        rcv0_t,
-        bits0,
-        ok0,
-        jnp.zeros(B, jnp.int32),
-        bits0,
-    )
-    it, _qv, _rcv, bits_final, converged, iters, frozen = (
-        jax.lax.while_loop(cond, body, init)
-    )
-    hard_planes = untile(
-        jnp.where(converged.reshape(nbt, 1, 1, BT), frozen, bits_final)
-    ).astype(bool)
-    iters = jnp.where(converged, iters, max_iterations)
-    return {
-        "codeword": _codeword_from_planes(lg, col_of, hard_planes)[:B_user],
-        "iterations": iters[:B_user],
-        "success": converged[:B_user],
     }

@@ -6,13 +6,15 @@ selected automatically (encoder.rs:63-94):
 
 * **staircase** (DVB-S2-style repeat-accumulate, detected by the
   2n-1-ones double-diagonal test of encoder/staircase.rs:3-24): parity =
-  running XOR prefix of the sparse product H0·m — O(n). On TPU this is a
-  masked gather-XOR followed by a cumulative-sum-mod-2 along the parity
-  axis, batched over messages.
+  running XOR prefix of the sparse product H0·m — O(n). On the device this
+  is a masked gather-XOR followed by a cumulative-sum-mod-2 along the
+  parity axis, batched over messages.
 * **dense generator**: Gauss-reduce [H1 H0] to obtain G0 = H1^{-1}H0
-  (host-side, once per code); parity = G0·m — a single GF(2) matmul that
-  maps straight onto the MXU as an f32 matrix product followed by mod 2
-  (exact: row sums < 2^24).
+  (host-side, once per code); parity = G0·m — a single GF(2) matmul run
+  as an f32 matrix product followed by mod 2. It asks for full f32
+  precision: 0/1 operands and row sums < 2^24 are exact in f32, while a
+  reduced-precision product (TF32 on the GPU, bf16 passes elsewhere) is
+  not something the exactness argument should depend on.
 """
 
 from __future__ import annotations
@@ -106,6 +108,7 @@ class Encoder:
             prod = jnp.dot(
                 msg.astype(jnp.float32),
                 jnp.asarray(self._g0.T, jnp.float32),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
             )
             parity = (prod.astype(jnp.int32) & 1).astype(jnp.uint8)

@@ -6,7 +6,7 @@ XOR and multiplication is AND, so the generic division steps of the
 reference collapse away (every nonzero pivot is 1).
 
 These routines run once per code during encoder construction / systematic
-permutation — they are host work by design, not TPU kernels.
+permutation — they are host work by design, not device kernels.
 """
 
 from __future__ import annotations

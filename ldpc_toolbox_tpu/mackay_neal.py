@@ -6,7 +6,7 @@ policies (mackay_neal.rs:148-154), optional minimum-girth enforcement with
 retrial budgets (mackay_neal.rs:188-197), column backtracking
 (mackay_neal.rs:227-239), and a parallel multi-seed search
 (mackay_neal.rs:121-127; here a process/thread pool on the host — graph
-search is not tensor math and stays off the TPU).
+search is not tensor math and stays off the device).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Rolled plane gather — the data-movement op of the unfused lifted path.
+"""Rolled plane gather — the data-movement op of the lifted flooding path.
 
 ``plane_gather(src, planes, shifts)`` with ``src (P, Z, B)``,
 ``planes/shifts (G, d)`` returns ``out (G, d, Z, B)`` where
@@ -9,14 +9,7 @@ i.e. each output plane is a whole contiguous ``(Z, B)`` block of ``src``,
 cyclically rolled along the lane axis. For lifted LDPC codes this is the
 entire message permutation between variable and check coordinates.
 
-Lowered as one flat XLA gather. A Pallas kernel (double-buffered
-whole-plane DMAs with an in-VMEM roll) was benchmarked against this on a
-v5e (640 planes, Z=360, B=128, f32, materialized output): XLA 2.39 ms vs
-Pallas 2.78 ms — XLA's gather lowering wins by ~17%, and the kernel could
-not handle int8 planes (Mosaic ``dynamic_rotate`` is 32-bit-only), so the
-kernel was deleted (see ARCHITECTURE.md "Pallas vs XLA decisions").  The
-production fast path is the fused v2 layout (ops/fused_bp2.py), which
-avoids this gather entirely by pre-rolling messages at rest.
+Lowered as one flat XLA gather of contiguous ``(B,)`` rows.
 """
 
 from __future__ import annotations

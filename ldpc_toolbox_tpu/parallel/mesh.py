@@ -4,8 +4,8 @@ The scaling axes of this framework are (batch of codewords) x (Eb/N0 sweep
 points) — see SURVEY.md §2. The reference parallelizes frames with OS
 threads and mpsc channels (ber.rs:303-310); here the codeword batch shards
 over a 1-D `jax.sharding.Mesh` axis ``"batch"``, H's index tensors are
-replicated, and the per-step error counters reduce to scalars with XLA
-collectives riding ICI. Multi-host extends the same mesh over all
+replicated, and the per-step error counters reduce to scalars with one XLA
+all-reduce (NVLink between the cards of one host). Multi-host extends the same mesh over all
 processes' devices.
 """
 

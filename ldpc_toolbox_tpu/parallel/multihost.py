@@ -1,15 +1,15 @@
-"""Multi-host (pod-slice) initialization helpers.
+"""Multi-host initialization helpers.
 
 The BER harness scales across hosts the same way it scales across chips:
 the codeword batch shards over one global mesh axis, H stays replicated,
 and the per-step counter reduction is the only cross-host communication —
-eleven scalars riding ICI within a slice and DCN across slices, once per
-batch (SURVEY.md §5's distributed-backend note).
+nine scalars in one all-reduce per batch (SURVEY.md §5's distributed-backend note).
 
-Usage on each host of a pod slice::
+Usage on each host::
 
     from ldpc_toolbox_tpu.parallel.multihost import initialize, global_mesh
-    initialize()                     # jax.distributed auto-bootstrap
+    initialize(coordinator_address="host0:1234", num_processes=2,
+               process_id=i)    # jax.distributed over TCP
     mesh = global_mesh()             # 1-D "batch" mesh over ALL devices
     BerTestBuilder(..., mesh=mesh, batch_size=global_batch).build().run()
 
@@ -30,10 +30,11 @@ __all__ = ["initialize", "global_mesh"]
 def initialize(**kwargs) -> None:
     """Initialize jax.distributed (no-op on a single process).
 
-    On Cloud TPU pods the coordinator address and process ids are
-    auto-detected; kwargs pass through to ``jax.distributed.initialize``.
-    Explicit kwargs (coordinator_address, num_processes, process_id) run
-    multi-process over plain TCP, e.g. CPU hosts in tests.
+    kwargs pass through to ``jax.distributed.initialize``: give the
+    coordinator_address, num_processes and process_id explicitly (GPU
+    hosts have no cluster auto-detection here); they run multi-process
+    over plain TCP, as the CPU hosts in tests do. Without kwargs a
+    failed auto-detection means a single process.
     """
     state = getattr(jax.distributed, "global_state", None)
     if state is not None and state.client is not None:

@@ -7,8 +7,8 @@ modulate, AWGN, demodulate, deinterleave, depuncture, decode, count
 systematic bit errors (ber.rs:436-481) — is ONE jitted step over a batch
 of frames, with the noise standard deviation as a traced scalar so a
 single compilation serves every Eb/N0 point. The codeword batch shards
-over a device mesh; the step returns eleven scalar counters, reduced on
-device (psum over ICI when sharded).
+over a device mesh; the step returns nine scalar counters, reduced on
+device (an all-reduce across devices when sharded).
 
 Semantics preserved from the reference:
 
@@ -98,18 +98,13 @@ class BerTestParameters:
     reporter: Optional[Callable[[Statistics, bool], None]] = None
     report_interval: float = 0.5
     bch_max_errors: int = 0
-    # batch of frames per decode step (the TPU analog of num_workers)
+    # batch of frames per decode step (takes the place of the reference's
+    # num_workers)
     batch_size: int = 128
     seed: int = 0
     mesh: Optional[object] = None  # jax.sharding.Mesh for multi-chip runs
     # block-circulant fast path: a decoder.lifted.LiftedGraph for the code
-    # (flooding schedules only); min-sum float rules additionally use the
-    # fused Pallas kernels on TPU
     lifted_graph: Optional[object] = None
-    # fused Pallas kernel override: None = auto (fused on TPU whenever the
-    # arithmetic has a fused rule), True = force (interpret mode on CPU —
-    # used by tests and the multichip dryrun), False = plane-gather path
-    fused: Optional[bool] = None
     # checkpoint file: sweep state is saved after every completed Eb/N0
     # point (and periodically within a point) so long sweeps are resumable
     checkpoint_path: Optional[str] = None
@@ -159,14 +154,16 @@ class _Counters:
 
 
 def _shard_decode(decode, mesh):
-    """Run a Pallas-fused decode per-shard over the mesh ``batch`` axis.
+    """Run a lifted decode per shard over the mesh ``batch`` axis.
 
-    ``pallas_call`` carries no SPMD partitioning rule, so under a sharded
-    batch the XLA partitioner would all-gather the LLRs and replicate the
-    kernels on every device. ``shard_map`` instead runs the whole decode on
-    each device's local batch shard — frames are independent, so this is
-    exact — and as a bonus each shard's iteration ``while_loop`` exits as
-    soon as *its* frames converge rather than the global worst case.
+    Left to the SPMD partitioner, the lifted decode's plane gathers
+    all-gather the batch: its compiled BER step holds four all-gathers
+    (layered) or seven (flooding) on a 4-device mesh. ``shard_map``
+    instead runs the whole decode on each device's local batch shard —
+    frames are independent, so this is exact, and the step keeps only
+    the counter all-reduce — and each shard's iteration ``while_loop``
+    exits as soon as *its* frames converge rather than the global worst
+    case.
     """
     from jax.sharding import PartitionSpec
 
@@ -237,25 +234,14 @@ class BerTest:
         ):
             from ..decoder.lifted_flooding import lifted_flooding_decode
             from ..decoder.lifted_layered import lifted_layered_decode
-            from ..ops.fused_bp2 import rule_for
-            from functools import partial as _partial
 
-            # fused v2 kernels on TPU for every arithmetic with a fused
-            # rule (min-sum + the i8 families); any batch size (the
-            # decode pads to a 128 multiple internally)
-            has_rule = rule_for(self.arithmetic) is not None
-            if p.fused is None:
-                fused = has_rule and jax.default_backend() != "cpu"
-            else:
-                fused = p.fused and has_rule
             self.graph = p.lifted_graph
-            if self.schedule == "flooding":
-                self._decode = _partial(
-                    lifted_flooding_decode, fused=fused
-                )
-            else:
-                self._decode = _partial(lifted_layered_decode, fused=fused)
-            if fused and p.mesh is not None:
+            self._decode = (
+                lifted_flooding_decode
+                if self.schedule == "flooding"
+                else lifted_layered_decode
+            )
+            if p.mesh is not None:
                 self._decode = _shard_decode(self._decode, p.mesh)
         else:
             self.graph = DecodeGraph.from_sparse(h)

@@ -53,7 +53,6 @@ class BerTestBuilder:
     seed: int = 0
     mesh: Optional[object] = None
     lifted_graph: Optional[object] = None
-    fused: Optional[bool] = None
     checkpoint_path: Optional[str] = None
     profile_dir: Optional[str] = None
     systematic_permutation: Optional[object] = None
@@ -77,7 +76,6 @@ class BerTestBuilder:
             seed=self.seed,
             mesh=self.mesh,
             lifted_graph=self.lifted_graph,
-            fused=self.fused,
             checkpoint_path=self.checkpoint_path,
             profile_dir=self.profile_dir,
             systematic_permutation=self.systematic_permutation,

@@ -25,7 +25,7 @@ Documented divergences (ARCHITECTURE.md "Known divergences"):
   rand's private ``CoinFlipper`` (variable bit consumption, internal and
   unspecified); this framework uses one ``random_range`` call instead.
 
-Construction randomness never touches the TPU path.
+Construction randomness never touches the device path.
 """
 
 from __future__ import annotations

@@ -211,10 +211,9 @@ def test_external_decoder_example():
     np.testing.assert_array_equal(out.codeword, cw)
 
 
-def test_cli_ber_precompile(tmp_path, monkeypatch):
+def test_cli_ber_precompile():
     """`ber --precompile` AOT-compiles the sweep step into the persistent
     cache and exits without running frames."""
-    monkeypatch.setenv("LDPC_TOOLBOX_TPU_CACHE", str(tmp_path / "cache"))
     out = run_cli(
         [
             "ber", "5g:2:8", "--decoder", "Minsumf32", "--precompile",
@@ -227,23 +226,68 @@ def test_cli_ber_precompile(tmp_path, monkeypatch):
     assert "0.00e+00" not in out
 
 
-def test_cli_ber_unroll_flag(tmp_path, monkeypatch):
-    """`ber --unroll static|dynamic` routes the resident kernels'
-    codegen planner via LDPC_RESIDENT_UNROLL (RESULTS "Unroll
-    budget"); `auto` leaves the planner's program-size gates alone."""
-    import os
+def test_cli_precompile_grid_in_one_process(monkeypatch):
+    """`precompile` compiles its (code x decoder) grid one shape after
+    another in this process: a second JAX process would need a device of
+    its own."""
+    import subprocess
 
-    monkeypatch.setenv("LDPC_TOOLBOX_TPU_CACHE", str(tmp_path / "cache"))
-    monkeypatch.delenv("LDPC_RESIDENT_UNROLL", raising=False)
-    base = [
-        "ber", "5g:2:8", "--decoder", "Minsumf32", "--precompile",
-        "--min-ebn0", "1", "--max-ebn0", "1", "--step-ebn0", "1",
-        "--max-iter", "2", "--batch-size", "8",
-    ]
-    run_cli(base + ["--unroll", "static"])
-    assert os.environ["LDPC_RESIDENT_UNROLL"] == "1"
-    run_cli(base + ["--unroll", "dynamic"])
-    assert os.environ["LDPC_RESIDENT_UNROLL"] == "0"
-    monkeypatch.delenv("LDPC_RESIDENT_UNROLL", raising=False)
-    run_cli(base)  # auto: untouched
-    assert "LDPC_RESIDENT_UNROLL" not in os.environ
+    def no_subprocess(*a, **k):
+        raise AssertionError("precompile started a subprocess")
+
+    monkeypatch.setattr(subprocess, "Popen", no_subprocess)
+    out = run_cli(
+        [
+            "precompile", "--codes", "5g:2:8",
+            "--decoders", "Minsumf32,HLMinsumf32",
+            "--batch-size", "8", "--max-iter", "2",
+        ]
+    )
+    assert "precompiled 5g:2:8 Minsumf32" in out
+    assert "precompiled 5g:2:8 HLMinsumf32" in out
+    assert "0 failed" in out
+
+
+def test_compile_cache_default_is_fixed_inside_checkout(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache is one fixed directory
+    of the checkout, which .gitignore lists."""
+    import pathlib
+
+    import jax
+
+    from ldpc_toolbox_tpu import cli
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    assert pathlib.Path(cli.DEFAULT_COMPILE_CACHE) == root / ".jax_cache"
+    assert ".jax_cache/" in (root / ".gitignore").read_text().splitlines()
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        cli._enable_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == cli.DEFAULT_COMPILE_CACHE
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_honours_env(tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the cache stays where JAX puts
+    it: the program sets no directory of its own."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    code = (
+        "import jax\n"
+        "from ldpc_toolbox_tpu.cli import _enable_compile_cache\n"
+        "_enable_compile_cache()\n"
+        "print(jax.config.jax_compilation_cache_dir)\n"
+    )
+    env = {**os.environ, "JAX_COMPILATION_CACHE_DIR": str(tmp_path),
+           "PYTHONPATH": str(root)}
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == str(tmp_path)

@@ -527,8 +527,8 @@ def test_layers_serial_equivalent_to_row_order():
 
 
 def test_tanh_check_messages_finite_under_saturation():
-    """TPU f32 tanh(x) returns exactly 1.0 for x >= 8 (polynomial
-    approximation), so without the product clamp atanh(prod) is inf and
+    """XLA's f32 tanh(x) returns exactly 1.0 for x >= 8 (polynomial
+    approximation; measured on the H100 and the CPU backend), so without the product clamp atanh(prod) is inf and
     posteriors go NaN — every frame hard-decides to the all-zero word and
     counts as a false decode. The product clamp bounds messages at
     2*atanh(nextafter(1, 0))."""
@@ -589,3 +589,30 @@ def test_decoder_routes_code_objects_to_lifted_path():
 
     with pytest.raises(TypeError):
         Decoder(object())
+
+
+@pytest.mark.parametrize("option", ["fused", "compact", "resident"])
+def test_decode_path_options_are_gone(option):
+    """One decode path per schedule: neither the user-facing entry points
+    nor the lifted decoders take a path-selecting option any more."""
+    from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
+    from ldpc_toolbox_tpu.decoder.factory import make_arithmetic
+    from ldpc_toolbox_tpu.decoder.lifted import LiftedGraph, nr5g_maps
+    from ldpc_toolbox_tpu.decoder.lifted_flooding import (
+        lifted_flooding_decode,
+    )
+    from ldpc_toolbox_tpu.decoder.lifted_layered import lifted_layered_decode
+    from ldpc_toolbox_tpu.simulation import BerTestBuilder
+
+    kw = {option: True}
+    with pytest.raises(TypeError):
+        Decoder((BaseGraph.BG2, 8), "HLMinsumf32", **kw)
+    with pytest.raises(TypeError):
+        BerTestBuilder(h=johnson_h(), **kw)
+    bg, z = BaseGraph.BG2, 8
+    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
+    _, a = make_arithmetic("Minsumf32")
+    llr = np.ones((2, lg.n), np.float32)
+    for decode in (lifted_flooding_decode, lifted_layered_decode):
+        with pytest.raises(TypeError):
+            decode(lg, a, llr, 2, **kw)

@@ -111,3 +111,25 @@ def test_batch_encode_satisfies_h_dvbs2_staircase():
     np.testing.assert_array_equal(cw[:, : enc.k], msgs)
     _assert_valid_codewords(h, cw)
     np.testing.assert_array_equal(enc.encode(msgs[0]), cw[0])
+
+
+def test_dense_encoder_matches_gf2_matmul():
+    """The dense encoder's f32 matrix product (full precision) equals the
+    integer GF(2) product G0·m, at the size of CCSDS C2's generator
+    (1020 x 7156), the largest dense encoder the harness builds."""
+    from ldpc_toolbox_tpu.codes.ccsds import C2Code
+    from ldpc_toolbox_tpu.gf2 import gf2_matmul
+    from ldpc_toolbox_tpu.systematic import (
+        full_rank_rows,
+        permute_columns,
+        systematic_permutation,
+    )
+
+    h_enc = full_rank_rows(C2Code().h())
+    enc = Encoder(permute_columns(h_enc, systematic_permutation(h_enc)))
+    assert not enc.staircase
+    rng = np.random.default_rng(4)
+    msgs = rng.integers(0, 2, size=(32, enc.k), dtype=np.uint8)
+    cw = np.asarray(enc.encode_batch(msgs))
+    np.testing.assert_array_equal(cw[:, : enc.k], msgs)
+    np.testing.assert_array_equal(cw[:, enc.k :], gf2_matmul(msgs, enc._g0.T))

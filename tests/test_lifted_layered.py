@@ -1,7 +1,5 @@
-"""Lifted horizontal-layered schedule: fused-vs-jnp equivalence, scalar
-serial oracle in layer order, and the convergence-speed property."""
-
-import functools
+"""Lifted horizontal-layered schedule: scalar serial oracle in layer
+order, the convergence-speed property, and i8 decoding on C2."""
 
 import numpy as np
 import pytest
@@ -18,45 +16,12 @@ from ldpc_toolbox_tpu.decoder.lifted import (
 )
 from ldpc_toolbox_tpu.decoder.lifted_flooding import lifted_flooding_decode
 from ldpc_toolbox_tpu.decoder.lifted_layered import lifted_layered_decode
-from ldpc_toolbox_tpu.ops.fused_bp2 import build_fused_layout
 
 
 def _llrs(n, batch, sigma, seed):
     rng = np.random.default_rng(seed)
     x = -1.0 + sigma * rng.standard_normal((batch, n))
     return jnp.asarray((-2.0 / sigma**2) * x, jnp.float32)
-
-
-@pytest.mark.parametrize(
-    "decoder",
-    [
-        "Minsumf32",
-        pytest.param("Minstarapproxi8", marks=pytest.mark.slow),
-        pytest.param("Phif32", marks=pytest.mark.slow),
-        pytest.param("Tanhf32", marks=pytest.mark.slow),
-        pytest.param("Aminstarf32", marks=pytest.mark.slow),
-    ],
-)
-def test_fused_layered_matches_jnp(decoder):
-    """The fused layered kernel must reproduce the jnp lifted-layered
-    reference bit-exactly (same layer order, fold order, wrap/clip
-    semantics) — including frames that do not converge."""
-    code = DvbCode.R1_4short  # has duplicate (vg,cg) pairs in a layer
-    lg = lifted_graph_for(code)
-    llr = _llrs(code.n, 128, 0.9, seed=5)
-    _, a = make_arithmetic(decoder)
-    o1 = lifted_layered_decode(lg, a, llr, 8)
-    o2 = lifted_layered_decode(lg, a, llr, 8, fused=True)
-    np.testing.assert_array_equal(
-        np.asarray(o1["success"]), np.asarray(o2["success"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["iterations"]), np.asarray(o2["iterations"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"]), np.asarray(o2["codeword"])
-    )
-    assert np.asarray(o1["success"]).sum() >= 100
 
 
 def _scalar_layered_minsum(h_dense, llr, layer_rows, max_iter):
@@ -158,249 +123,69 @@ def test_layered_converges_faster_than_flooding():
     assert il <= 0.65 * if_, (il, if_)
 
 
-@pytest.mark.slow  # staged-program tracing dominates (~50 s interpreted)
-@pytest.mark.parametrize(
-    "decode",
-    [
-        # pin resident=False: compaction applies to the streaming kernels
-        # (the resident kernels have per-tile early exit instead)
-        functools.partial(lifted_layered_decode, resident=False),
-        functools.partial(lifted_flooding_decode, resident=False),
-    ],
-)
-def test_compaction_bit_exact_multi_tile(decode):
-    """Staged converged-frame compaction (decoder/compaction.py) must be
-    bit-identical to the unstaged fused loop: same success, iterations,
-    and codewords for every frame — on a multi-tile batch (nbt=2) where
-    frames converge at different iterations, so both compaction stages
-    actually execute."""
-    bg = BaseGraph.BG2
-    z = 16
-    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
-    n = bg.num_cols * z
-    llr = _llrs(n, 256, 1.3, seed=11)
-    _, a = make_arithmetic("Minsumf32")
-
-    # 6 iterations: still a convergence mix (iters 2..6 + stragglers)
-    # at half the interpret-mode cost of 10
-    o1 = decode(lg, a, llr, 6, fused=True, compact=False)
-    o2 = decode(lg, a, llr, 6, fused=True, compact=True)
-    s = np.asarray(o1["success"])
-    it = np.asarray(o1["iterations"])
-    # the schedule must hit a mix of early and late convergence for
-    # the compaction path to be meaningfully exercised
-    assert 0 < s.sum() < 256
-    assert len(np.unique(it[s])) >= 3
-    np.testing.assert_array_equal(s, np.asarray(o2["success"]))
-    np.testing.assert_array_equal(it, np.asarray(o2["iterations"]))
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"]), np.asarray(o2["codeword"])
-    )
-
-
-@pytest.mark.parametrize(
-    "unroll,bt,decoder",
-    [
-        # static-unrolled sweep+syndrome, multi-tile
-        ("1", "128", "Minsumf32"),
-        # group-looped dynamic path (float: syndrome from Qv signs)
-        pytest.param("0", "128", "Minsumf32", marks=pytest.mark.slow),
-        # dynamic path with the i8 hard-decision buffer (the BG1-i8 shape)
-        pytest.param(
-            "0", "128", "Minstarapproxi8", marks=pytest.mark.slow
-        ),
-        # static-unrolled quadratic i8 fold (the r5 default for the
-        # DVB-S2-normal i8 shapes once the budget admits ~87k-op sweeps)
-        pytest.param(
-            "1", "128", "Minstarapproxi8", marks=pytest.mark.slow
-        ),
-        # auto-picked wide batch tile
-        pytest.param("1", "", "Minsumf32", marks=pytest.mark.slow),
-    ],
-)
-def test_resident_bit_exact_multi_tile(monkeypatch, unroll, bt, decoder):
-    """The VMEM-resident decode (ops/resident_layered.py) must equal the
-    streaming fused kernel and the jnp reference bit-for-bit on a
-    multi-tile batch with mixed convergence — including its in-kernel
-    0-iteration exit, per-frame freeze, and per-tile early exit — in
-    both code-generation modes (static-unrolled and group-looped
-    dynamic) and at the auto-picked wide batch tile."""
-    monkeypatch.setenv("LDPC_RESIDENT_UNROLL", unroll)
-    if bt:
-        monkeypatch.setenv("LDPC_RESIDENT_BT", bt)
-    bg = BaseGraph.BG2
-    z = 16
-    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
-    n = bg.num_cols * z
-    llr = _llrs(n, 256, 1.3, seed=11)
-    _, a = make_arithmetic(decoder)
-
-    o1 = lifted_layered_decode(lg, a, llr, 10)  # jnp reference
-    o2 = lifted_layered_decode(lg, a, llr, 10, fused=True, resident=True)
-    s = np.asarray(o1["success"])
-    assert 0 < s.sum() < 256
-    np.testing.assert_array_equal(s, np.asarray(o2["success"]))
-    np.testing.assert_array_equal(
-        np.asarray(o1["iterations"]), np.asarray(o2["iterations"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"]), np.asarray(o2["codeword"])
-    )
-
-
-@pytest.mark.slow
-def test_flooding_unaligned_z_resident_matches_streaming():
-    """C2's Z=511 lift through the resident flooding kernel (padded
-    planes + two-roll mod-Z rotation) must match the streaming fused
-    flooding kernels bit-exactly."""
+def test_layered_i8_recovers_c2_codewords():
+    """The plain lifted layered decode with an i8 rule on CCSDS C2 (the
+    only unaligned lift, Z = 511, with two circulants per block) recovers
+    the sent codewords at high SNR. C2's trailing square is singular, so
+    messages encode on the full-rank rows of H with a systematic column
+    permutation, as the ber harness does."""
     from ldpc_toolbox_tpu.codes.ccsds import C2Code
-
-    lg = lifted_graph_for(C2Code())
-    llr = _llrs(8176, 128, 0.45, seed=5)
-    _, a = make_arithmetic("Minsumf32")
-    o1 = lifted_flooding_decode(lg, a, llr, 6, fused=True, resident=False)
-    o2 = lifted_flooding_decode(lg, a, llr, 6, fused=True, resident=True)
-    s1 = np.asarray(o1["success"])
-    np.testing.assert_array_equal(s1, np.asarray(o2["success"]))
-    np.testing.assert_array_equal(
-        np.asarray(o1["iterations"]), np.asarray(o2["iterations"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"]), np.asarray(o2["codeword"])
-    )
-    assert s1.sum() >= 100
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("resident", [True, False])
-def test_layered_unaligned_z_matches_jnp(resident):
-    """C2's Z=511 lift through the layered kernels (padded planes +
-    two-roll mod-Z rotation): resident and streaming variants must both
-    reproduce the jnp layered reference bit-exactly."""
-    from ldpc_toolbox_tpu.codes.ccsds import C2Code
-
-    lg = lifted_graph_for(C2Code())
-    assert lg.Z % 8 != 0
-    llr = _llrs(8176, 128, 0.45, seed=5)
-    _, a = make_arithmetic("HLMinsumf32")
-    o1 = lifted_layered_decode(lg, a, llr, 8)
-    o2 = lifted_layered_decode(
-        lg, a, llr, 8, fused=True, resident=resident, compact=False
-    )
-    s1 = np.asarray(o1["success"])
-    np.testing.assert_array_equal(s1, np.asarray(o2["success"]))
-    np.testing.assert_array_equal(
-        np.asarray(o1["iterations"]), np.asarray(o2["iterations"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"])[s1], np.asarray(o2["codeword"])[s1]
-    )
-    assert s1.sum() >= 120
-
-
-@pytest.mark.parametrize(
-    "decoder",
-    [
-        "Minsumf32",
-        pytest.param("Minsumbf16", marks=pytest.mark.slow),
-        pytest.param("Normminsumbf16", marks=pytest.mark.slow),
-    ],
-)
-def test_compressed_flooding_bit_exact(monkeypatch, decoder):
-    """The compressed-check-state resident flooding kernel
-    (ops/resident_compressed.py) must equal the streaming fused flooding
-    kernels bit-for-bit — success masks, iteration counts, codewords —
-    on a multi-tile batch with mixed convergence (min-sum c2v state is
-    losslessly (signs, min1, min2, argmin))."""
-    from ldpc_toolbox_tpu.ops.resident_compressed import (
-        compressed_flooding_pick_bt,
-        compressed_flooding_supported,
+    from ldpc_toolbox_tpu.encoder import Encoder
+    from ldpc_toolbox_tpu.systematic import (
+        full_rank_rows,
+        permute_columns,
+        systematic_permutation,
     )
 
-    bg = BaseGraph.BG2
-    z = 16
-    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
-    n = bg.num_cols * z
-    llr = _llrs(n, 256, 1.3, seed=11)
-    _, a = make_arithmetic(decoder)
-
-    o1 = lifted_flooding_decode(
-        lg, a, llr, 10, fused=True, resident=False, compact=False
-    )
-    monkeypatch.setenv("LDPC_FORCE_COMPRESSED", "1")
-    o2 = lifted_flooding_decode(lg, a, llr, 10, fused=True, resident=True)
-    s = np.asarray(o1["success"])
-    assert 0 < s.sum() < 256
-    np.testing.assert_array_equal(s, np.asarray(o2["success"]))
-    np.testing.assert_array_equal(
-        np.asarray(o1["iterations"]), np.asarray(o2["iterations"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"]), np.asarray(o2["codeword"])
-    )
+    code = C2Code()
+    lg = lifted_graph_for(code)
+    assert lg.Z == 511
+    h_enc = full_rank_rows(code.h())
+    perm = np.asarray(systematic_permutation(h_enc))
+    enc = Encoder(permute_columns(h_enc, perm))
+    rng = np.random.default_rng(12)
+    msgs = rng.integers(0, 2, size=(8, enc.k), dtype=np.uint8)
+    cw = np.asarray(enc.encode_batch(msgs))[:, np.argsort(perm)]
+    sigma = 0.45
+    x = np.where(cw == 0, -1.0, 1.0) + sigma * rng.standard_normal(cw.shape)
+    llr = jnp.asarray((-2.0 / sigma**2) * x, jnp.float32)
+    _, a = make_arithmetic("HLMinstarapproxi8")
+    out = lifted_layered_decode(lg, a, llr, 20)
+    assert np.asarray(out["success"]).all()
+    np.testing.assert_array_equal(np.asarray(out["codeword"]), cw)
+    assert (np.asarray(out["iterations"]) > 0).all()
 
 
-def test_flagship_flooding_shape_is_resident():
-    """DVB-S2 r=1/2 n=64800 Minsumbf16 flooding — the one family x
-    schedule cell that streamed through round 4 (2E bf16 = 116 MB) —
-    must be claimed at Bt=128 by BOTH resident forms: the single-array
-    aliased message kernel (E bf16 = 58 MB) and the compressed
-    check-state kernel."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("code", ["R1_2", "R1_4short", "R9_10"])
+def test_duplicate_merge_gives_one_addend_per_group(code):
+    """DVB-S2 layers can meet a variable group twice. The merge tables
+    fold those deltas into the group's first slot and zero the rest, so
+    the layered Qv scatter-add sees one nonzero addend per group — the
+    same per-group sums, in whatever order the device applies them."""
+    from ldpc_toolbox_tpu.decoder.lifted_layered import _duplicate_merge
+    from ldpc_toolbox_tpu.decoder.lifted_layout import build_lifted_layout
 
-    from ldpc_toolbox_tpu.codes.dvbs2 import Code as DvbCode
-    from ldpc_toolbox_tpu.decoder.lifted import lifted_graph_for
-    from ldpc_toolbox_tpu.ops.fused_bp2 import build_fused_layout, rule_for
-    from ldpc_toolbox_tpu.ops.resident_compressed import (
-        compressed_flooding_pick_bt,
-        compressed_layered_pick_bt,
-    )
-    from ldpc_toolbox_tpu.ops.resident_flooding import (
-        resident_flooding_pick_bt,
-    )
-
-    lg = lifted_graph_for(DvbCode.R1_2)
-    layout = build_fused_layout(lg)
-    _, a = make_arithmetic("Minsumbf16")
-    rule = rule_for(a)
-    assert resident_flooding_pick_bt(layout, rule, jnp.bfloat16, 512) == 128
-    assert compressed_flooding_pick_bt(layout, rule, jnp.bfloat16, 512) == 128
-    # and the f32 layered family (Rcv f32 = 111 MB, streaming through
-    # round 4) is claimed by the compressed layered kernel
-    _, a32 = make_arithmetic("HLMinsumf32")
-    rule32 = rule_for(a32)
-    assert compressed_layered_pick_bt(layout, rule32, jnp.float32, 512) == 128
-
-
-@pytest.mark.parametrize(
-    "decoder",
-    [
-        "Minsumf32",
-        pytest.param("Minstarapproxi8", marks=pytest.mark.slow),
-    ],
-)
-def test_aliased_flooding_bit_exact(monkeypatch, decoder):
-    """The single-array aliased resident flooding kernel must equal the
-    streaming fused kernels bit-for-bit (small codes route to the dual
-    two-array kernel by default, so force the aliased form here)."""
-    bg = BaseGraph.BG2
-    z = 16
-    lg = LiftedGraph.from_sparse(bg.h(z), *nr5g_maps(bg, z))
-    n = bg.num_cols * z
-    llr = _llrs(n, 256, 1.3, seed=11)
-    _, a = make_arithmetic(decoder)
-
-    o1 = lifted_flooding_decode(
-        lg, a, llr, 10, fused=True, resident=False, compact=False
-    )
-    monkeypatch.setenv("LDPC_FORCE_ALIASED", "1")
-    o2 = lifted_flooding_decode(lg, a, llr, 10, fused=True, resident=True)
-    s = np.asarray(o1["success"])
-    assert 0 < s.sum() < 256
-    np.testing.assert_array_equal(s, np.asarray(o2["success"]))
-    np.testing.assert_array_equal(
-        np.asarray(o1["iterations"]), np.asarray(o2["iterations"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(o1["codeword"]), np.asarray(o2["codeword"])
-    )
+    layout = build_lifted_layout(lifted_graph_for(DvbCode[code]))
+    rng = np.random.default_rng(2)
+    merged_any = False
+    for m in layout.chk_meta:
+        merge = _duplicate_merge(layout, m)
+        if merge is None:
+            continue
+        merged_any = True
+        partners, first = (np.asarray(t) for t in merge)
+        for j in range(m.g1 - m.g0):
+            vgs = layout.syn_vg[m.ebase + j * m.d : m.ebase + (j + 1) * m.d]
+            delta = rng.integers(-50, 50, size=m.d)
+            padded = np.append(delta, 0)
+            out = delta.copy()
+            for k in range(partners.shape[1]):
+                out = out + padded[partners[j, k]]
+            out = np.where(first[j], out, 0)
+            want, got = np.zeros(layout.VG, int), np.zeros(layout.VG, int)
+            np.add.at(want, vgs, delta)
+            np.add.at(got, vgs, out)
+            np.testing.assert_array_equal(got, want)
+            for g in np.unique(vgs):
+                assert np.count_nonzero(first[j][vgs == g]) == 1
+    assert merged_any

@@ -64,11 +64,10 @@ key = jax.random.key(0)
 counters = {k: int(v) for k, v in jax.device_get(test._step(key, 0.7)).items()}
 print("COUNTERS " + json.dumps(counters, sort_keys=True), flush=True)
 
-if os.environ.get("MH_FUSED"):
-    # scenario 2 (VERDICT r3 #6): the fused lifted layered decode —
-    # Pallas kernels in interpret mode, VMEM-resident path — per shard
-    # via shard_map across BOTH processes' devices; counters must be
-    # replicated AND equal to this process's local unsharded run.
+if os.environ.get("MH_LIFTED"):
+    # scenario 2: the lifted layered decode per shard via shard_map
+    # across BOTH processes' devices; counters must be replicated AND
+    # equal to this process's local unsharded run.
     from ldpc_toolbox_tpu.codes.nr5g import BaseGraph
     from ldpc_toolbox_tpu.decoder.lifted import LiftedGraph, nr5g_maps
 
@@ -79,7 +78,6 @@ if os.environ.get("MH_FUSED"):
         h=h5g,
         decoder_implementation="HLMinsumf32",
         lifted_graph=lg,
-        fused=True,
         ebn0s_db=[6.0],
         max_frame_errors=1,
         max_iterations=4,
@@ -100,7 +98,7 @@ if os.environ.get("MH_FUSED"):
         ).items()
     }
     assert sharded == local, (sharded, local)
-    print("FUSED " + json.dumps(sharded, sort_keys=True), flush=True)
+    print("LIFTED " + json.dumps(sharded, sort_keys=True), flush=True)
 
 if os.environ.get("MH_SWEEP"):
     # scenario 3 (VERDICT r4 #6): the FULL sweep loop under
@@ -236,19 +234,18 @@ def test_two_process_ber_step(tmp_path):
 
 
 @pytest.mark.slow
-def test_two_process_fused_ber_step(tmp_path):
-    """The fused Pallas lifted decode (resident layered, interpret mode)
-    under jax.distributed: 2 processes x 2 devices, batch sharded via
-    shard_map over the global mesh. Each worker asserts its sharded
+def test_two_process_lifted_ber_step(tmp_path):
+    """The lifted layered decode under jax.distributed: 2 processes x 2
+    devices, batch sharded via shard_map over the global mesh. Each worker asserts its sharded
     counters equal its local unsharded run; here we assert the two
     processes also agree with each other (mechanism parity target:
     reference ber.rs:303-359 worker threads)."""
-    outs = _run_workers(tmp_path, extra_env={"MH_FUSED": "1"})
+    outs = _run_workers(tmp_path, extra_env={"MH_LIFTED": "1"})
     counters = _grab(outs, "COUNTERS")
     assert counters[0] == counters[1]
-    fused = _grab(outs, "FUSED")
-    assert fused[0] == fused[1]
-    assert fused[0]["num_frames"] == 8
+    lifted = _grab(outs, "LIFTED")
+    assert lifted[0] == lifted[1]
+    assert lifted[0]["num_frames"] == 8
 
 
 @pytest.mark.slow

@@ -1,5 +1,5 @@
-"""Measure the equal-quality claim on TPU (VERDICT r3 #2; r4 #9 adds
-LDPC_EQ_CODE=5g:BG1:384 for the cross-family confirmation).
+"""Measure equal-quality iteration budgets across schedules
+(LDPC_EQ_CODE=5g:BG1:384 selects the 5G NR cross-family check).
 
 Decodes the SAME channel realizations (identical per-chunk PRNG keys)
 with several (decoder, max_iterations) configs across the DVB-S2 r=1/2
@@ -16,21 +16,19 @@ Usage: python tools/equal_quality.py [out.jsonl]
 """
 
 import json
+import os
+import pathlib
 import sys
 import time
 from functools import partial
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ldpc_toolbox_tpu.cli import _enable_compile_cache
-
-_enable_compile_cache()
-
-import os
 
 BATCH = 1024
 #: (ebn0_db, chunks): frames = chunks * BATCH, escalating into the floor
@@ -63,6 +61,7 @@ def main():
     )
     from ldpc_toolbox_tpu.decoder.lifted_layered import lifted_layered_decode
 
+    _enable_compile_cache()
     out_path = sys.argv[1] if len(sys.argv) > 1 else "results/equal_quality.jsonl"
     code_spec = os.environ.get("LDPC_EQ_CODE", "dvbs2:R1_2")
     if code_spec.startswith("5g:"):
@@ -91,7 +90,7 @@ def main():
             if schedule == "layered"
             else lifted_flooding_decode
         )
-        dec = partial(decode, lg, arith, max_iterations=iters, fused=True)
+        dec = partial(decode, lg, arith, max_iterations=iters)
 
         @jax.jit
         def chunk(key, sigma, acc):
